@@ -1,14 +1,13 @@
-"""basic_video_codec_tpu — a TPU-native (JAX/XLA/Pallas) block video codec framework.
+"""basic_video_codec_tpu — a JAX (XLA/Pallas) block video codec framework for the GPU.
 
 A from-scratch rebuild of the capabilities of the educational H.264-style codec
-``dheri/basic_video_codec`` (mounted read-only at /root/reference), re-designed
-TPU-first:
+``dheri/basic_video_codec``, designed for an accelerator:
 
 * full-search SAD motion estimation scores every candidate MV of every block of a
-  frame in one batched device kernel (Pallas on TPU, XLA fallback elsewhere)
-  instead of the reference's per-macroblock Python loops
-  (reference: encoder/block_predictor.py:61-91),
-* 2D DCT/IDCT run as MXU matmuls ``D @ X @ D.T`` vmapped over all blocks
+  frame in one batched device program instead of the reference's per-macroblock
+  Python loops (reference: encoder/block_predictor.py:61-91); the serial fastME
+  walk runs as one Pallas kernel per frame on the GPU,
+* 2D DCT/IDCT run as batched matmuls ``D @ X @ D.T`` over all blocks
   (reference: encoder/dct.py:9-18),
 * quantize / rescale / reconstruct / clip are fused element-wise device ops
   (reference: encoder/dct.py:35-42, encoder/Frame.py:197-202),
@@ -17,8 +16,8 @@ TPU-first:
 * entropy coding (zigzag / RLE / exp-Golomb) is a thin host-side finalization over
   device-produced integer streams, with exact closed-form bit lengths computed on
   device for rate control (reference: encoder/entropy_encoder.py),
-* multi-chip scaling shards independent GOPs / sweep configs over a
-  ``jax.sharding.Mesh`` and splits frames spatially with halo exchange over ICI
+* multi-device scaling shards independent GOPs / sweep configs over a
+  ``jax.sharding.Mesh`` and splits frames spatially with halo exchange
   (the reference is single-threaded Python and has no parallelism).
 
 The public API mirrors the reference field-for-field (``EncoderConfig``,
@@ -28,7 +27,7 @@ encoder/encoder.py:104-121).
 
 A pure-NumPy *golden model* (``basic_video_codec_tpu.golden``) reproduces the
 reference's observable behaviour — including its quirks — and is the conformance
-oracle for the TPU kernels.
+oracle for the device kernels.
 """
 
 from .config import EncoderConfig, InputParameters

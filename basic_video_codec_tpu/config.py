@@ -4,13 +4,12 @@
 ``InputParameters`` mirrors reference input_parameters.py:4-11 so that driver
 code written against the reference works unchanged against this framework.
 
-New, TPU-specific knobs are keyword-only and default to the reference
-behaviour:
+New knobs are keyword-only and default to the reference behaviour:
 
-* ``backend``   — "auto" | "tpu" | "golden".  "golden" forces the pure-NumPy
-  reference-exact model (the conformance oracle); "tpu" forces the JAX device
-  pipeline; "auto" uses the device pipeline and falls back to golden for the
-  rare corner cases it does not cover.
+* ``backend``   — "auto" | "device" | "golden".  "golden" runs the pure-NumPy
+  reference-exact model (the conformance oracle); "device" and "auto" (the
+  default) both run the JAX pipeline on whatever device JAX selects — the
+  GPU where one is present.  There is no automatic fallback to golden.
 * ``exact_transform`` — opt-in integer-exact DCT/IDCT: streams become
   bit-identical across backends/hardware (the float reference cannot offer
   this); RD behaviour is indistinguishable (the fixed-point basis error is

@@ -8,6 +8,6 @@ def decode_video(params: InputParameters):
     backend = getattr(params.encoder_config, "backend", "auto")
     if backend == "golden":
         return _golden_decode(params)
-    from .models.pipeline import decode_video as _tpu_decode
+    from .models.pipeline import decode_video as _device_decode
 
-    return _tpu_decode(params)
+    return _device_decode(params)

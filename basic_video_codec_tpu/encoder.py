@@ -4,8 +4,8 @@
 encoder/encoder.py:28.  The backend is selected by
 ``params.encoder_config.backend``:
 
-* ``"tpu"`` / ``"auto"`` — the JAX device pipeline (models/pipeline.py):
-  batched ME + MXU DCT on device, vectorized host entropy finalization.
+* ``"device"`` / ``"auto"`` — the JAX device pipeline (models/pipeline.py):
+  batched ME + matmul DCT on device, vectorized host entropy finalization.
 * ``"golden"`` — the pure-NumPy reference-exact model (conformance oracle /
   CPU fallback).
 """
@@ -18,6 +18,6 @@ def encode_video(params: InputParameters, results_csv_path: str | None = "result
     backend = getattr(params.encoder_config, "backend", "auto")
     if backend == "golden":
         return _golden_encode(params, results_csv_path)
-    from .models.pipeline import encode_video as _tpu_encode
+    from .models.pipeline import encode_video as _device_encode
 
-    return _tpu_encode(params, results_csv_path)
+    return _device_encode(params, results_csv_path)

@@ -2,7 +2,7 @@
 
 This subpackage reproduces the observable behaviour of the reference encoder /
 decoder (dheri/basic_video_codec) including its quirks — it is the conformance
-oracle every TPU kernel and the full device pipeline are validated against,
+oracle every device kernel and the full device pipeline are validated against,
 and it doubles as a CPU fallback backend.
 
 It is NOT the production path: the production encode/decode pipelines live in

@@ -3,7 +3,7 @@
 The reference computes a separable float32 DCT-II/III via
 ``scipy.fftpack.dct/idct(norm='ortho')`` (dct.py:9-18); the golden model calls
 the same routine so its floats are bit-identical to the reference's.  The
-device path (ops/transform.py) computes the same transform as MXU matmuls —
+device path (ops/transform.py) computes the same transform as float32 matmuls —
 see there for the equivalence/tolerance discussion.
 """
 

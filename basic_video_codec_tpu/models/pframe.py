@@ -4,7 +4,7 @@ Pipeline (replaces reference PFrame.py:29-131's per-block Python loop):
 
 1. motion estimation — batched full search with fused MC prediction
    (ops/me.py) or compiled MVP-chain fast search (ops/fastme.py),
-2. residuals -> batched MXU DCT,
+2. residuals -> batched matmul DCT,
 3. quantization + exact entropy pricing (closed-form RLE/exp-Golomb lengths,
    reference PFrame.py:136-163 semantics for the differential-MV rows):
    fully batched when per-row QPs are known up front (fixed QP, RC 2/3),
@@ -16,8 +16,7 @@ The MVP chain (PFrame.py:105) only affects fastME and the differential MV
 *encoding* — full search never reads it, so step 1 is embarrassingly parallel.
 
 Outputs are packed into few transfers (recon, one artifact plane, int16
-qdct, one int32 vector) to minimize device->host roundtrips on
-remote-attached TPUs.
+qdct, one int32 vector) to keep device->host round trips few.
 """
 
 from functools import partial
@@ -68,9 +67,8 @@ def pframe_encode(
     smalls_i32 [...][, pred_u8 [H, W] when emit_pred])`` — smalls pack
     (mvs, sads, comps, row_qps, row_bits).  ``emit_pred`` feeds the compact
     transfer packers (ops/pack.py), which need the prediction plane for the
-    res/recon correction codes: re-gathering it post-hoc from stacked
-    half-pel buffers trips a TPU backend fault when combined with the fastME
-    while_loop in one program, so it travels out of the step instead.
+    res/recon correction codes, so it travels out of the step instead of
+    being re-gathered post hoc from the stacked half-pel buffers.
     The res_wo_mc artifact plane is integer math over host-resident data
     (curr minus the oldest reference) and is recomputed by the host writer
     instead of being transferred.
@@ -90,26 +88,14 @@ def pframe_encode(
     else:
         interp_refs = jnp.zeros((refs.shape[0], 2 * h, 2 * w), jnp.uint8)
 
-    # 1. motion estimation (+ fused MC prediction on the full-search path).
-    # The Pallas kernel is selected where measured faster AND within its
-    # VMEM unroll budget (ops/pallas_me.py use_pallas); results are
-    # bit-identical to the XLA scan.  Rolling-stack warm-up masking
-    # (n_valid) runs on the XLA path.
+    # 1. motion estimation (+ fused MC prediction on the full-search path)
     if fast:
         mvs, sads, comps = fast_search_frame(curr, refs, interp_refs, bs, frac,
                                              n_valid=n_valid)
         preds = gather_pred_blocks(refs, interp_refs, mvs, bs, frac).astype(jnp.int32)
     else:
-        from ..ops.pallas_me import full_search_pallas, use_pallas
-
-        if n_valid is None and use_pallas(h, w, bs, search_range,
-                                          refs.shape[0], frac):
-            mvs, sads, preds = full_search_pallas(curr, refs, interp_refs, bs,
-                                                  search_range, frac)
-            preds = preds.astype(jnp.int32)
-        else:
-            mvs, sads, preds = full_search(curr, refs, interp_refs, bs,
-                                           search_range, frac, n_valid=n_valid)
+        mvs, sads, preds = full_search(curr, refs, interp_refs, bs,
+                                       search_range, frac, n_valid=n_valid)
         sr = search_range * 2 if frac else search_range
         n_window = (refs.shape[0] if n_valid is None else n_valid) * (2 * sr + 1) ** 2
         comps = jnp.full((nbr, nbc), 1, dtype=jnp.int32) * n_window

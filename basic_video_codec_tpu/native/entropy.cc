@@ -2,7 +2,7 @@
 //
 // Exp-Golomb bit packing/parsing and RLE block expansion are the only
 // inherently-sequential, variable-length parts of the codec (reference
-// encoder/entropy_encoder.py semantics); everything else runs on the TPU.
+// encoder/entropy_encoder.py semantics); everything else runs on device.
 // These run on host as tight C loops, exposed via a plain C ABI for ctypes.
 //
 // Bitstream format (bit-compatible with the reference):

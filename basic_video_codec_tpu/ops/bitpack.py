@@ -1,10 +1,9 @@
-"""Device-side entropy coding: the FINAL bitstream bytes, packed on the TPU.
+"""Device-side entropy coding: the FINAL bitstream bytes, packed on device.
 
 The host entropy coder (entropy/native.py) packs each frame's pred/dct
 symbol streams into exp-Golomb bitstreams after the compact transfer lands.
-That leaves two costs on the host/wire critical path: the qdct prefix codes
-on the wire (the largest remaining transport field, PROFILE.md §8b) and the
-host bit-packing pass.  Every codeword is closed-form — signed exp-Golomb
+That leaves two costs on the host critical path: the qdct prefix codes in
+the transfer (its largest field) and the host bit-packing pass.  Every codeword is closed-form — signed exp-Golomb
 of value ``v`` is the integer ``mapped(v)+1`` written MSB-first in a field
 of ``2*bitlen(mapped+1)-1`` bits (reference encoder/entropy_encoder.py:8-29)
 — so the device can emit the finished bitstream itself:
@@ -14,7 +13,7 @@ of ``2*bitlen(mapped+1)-1`` bits (reference encoder/entropy_encoder.py:8-29)
   for rate-control pricing (reference entropy_encoder.py:65-112 grammar);
 * compute every slot's ABSOLUTE bit offset from two exclusive cumsums
   (within-block over interleaved header/literal slots, then over blocks);
-* compact the valid slots (ops/pack.compact_stream — sort-based on TPU)
+* compact the valid slots (ops/pack.compact_stream)
   and scatter-add each codeword's two 32-bit word contributions.  Codes
   never share bits, so integer add == bitwise or, and int32 wraparound is
   irrelevant (no carries between disjoint bits).
@@ -150,8 +149,8 @@ def dct_sym_cap(capq: int, nb: int, L: int) -> int:
     nonzero coefficients): ``slots <= min(3*capq, 3*nb*L/2) + nb``, plus
     ``nb`` EOB markers.  The earlier measured-headroom cap (``capq + 2*nb``)
     overflowed EVERY qp-0 frame on camera-statistics content (headers
-    alone reach ~L/3 per block), and each overflow costs a ~40-60 ms
-    synchronous full-plane fallback through the relay — while a generous
+    alone reach ~L/3 per block), and each overflow costs a synchronous
+    full-plane fallback fetch — while a generous
     cap costs only device pool allocation and scatter-add work, because
     tail-mode transfers ship USED bytes (ops/pack.py qdct_caps doctrine).
     """

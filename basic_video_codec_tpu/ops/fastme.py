@@ -2,10 +2,13 @@
 
 FastME is the one search the reference makes *inherently serial across
 blocks*: each block's search is seeded at the previous raster block's chosen
-MV (PFrame.py:99-110).  The TPU design compiles that chain into a single
-``lax.scan`` over blocks whose step is a bounded ``lax.while_loop`` of
-cross-pattern refinements — the reference's unbounded recursion with
-exception-driven candidate rejection becomes masked fixed-shape iterations.
+MV (PFrame.py:99-110).  The plain XLA walk (:func:`fast_search_frame_xla`)
+compiles that chain into a single ``lax.scan`` over blocks whose step is a
+bounded ``lax.while_loop`` of cross-pattern refinements — the reference's
+unbounded recursion with exception-driven candidate rejection becomes
+masked fixed-shape iterations.  On the GPU the same walk runs as one Pallas
+kernel per frame (ops/fastme_pallas.py); the XLA walk is its reference and
+the path of every other backend.
 
 Exact-decision notes:
 
@@ -46,14 +49,21 @@ def fast_search_frame(curr: jnp.ndarray, refs: jnp.ndarray, interp_refs: jnp.nda
     Returns ``(mvs int32 [nbr, nbc, 3], sads int32 [nbr, nbc],
     comps int32 [nbr, nbc])``.
     """
-    h, w = curr.shape
     from .fastme_pallas import fast_search_frame_pallas, use_pallas_fastme
 
-    if use_pallas_fastme(h, w, bs, refs.shape[0], frac):
-        # table + serial-walk split: ~4x fewer us per refinement iteration
-        # on the TPU backend (PROFILE.md section 2); decisions identical
+    if use_pallas_fastme():
         return fast_search_frame_pallas(curr, refs, interp_refs, bs, frac,
                                         n_valid=n_valid)
+    return fast_search_frame_xla(curr, refs, interp_refs, bs, frac, n_valid)
+
+
+@partial(jax.jit, static_argnames=("bs", "frac"))
+def fast_search_frame_xla(curr: jnp.ndarray, refs: jnp.ndarray,
+                          interp_refs: jnp.ndarray, bs: int, frac: bool,
+                          n_valid: jnp.ndarray | None = None):
+    """The plain XLA walk: :func:`fast_search_frame` on every backend but
+    the GPU, and the reference the Pallas kernel is tested against."""
+    h, w = curr.shape
     nbr, nbc = h // bs, w // bs
     n_ref = refs.shape[0]
     curr_i = curr.astype(jnp.int32)

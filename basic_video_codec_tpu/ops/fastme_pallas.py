@@ -1,167 +1,106 @@
-"""Pallas fastME: the serial MVP-chained refinement walk as one TPU kernel.
+"""Pallas fastME: the serial MVP-chained refinement walk as one GPU kernel.
 
 The reference's fastME (block_predictor.py:11-58, PFrame.py:99-110) chains
-every block's search on the previous raster block's MV — inherently serial.
-The XLA implementation (ops/fastme.py, ``lax.scan`` x ``while_loop``) costs
-~3.5 us per serial iteration on this backend, dominated by control flow and
-tiny gathers (PROFILE.md section 2), i.e. 14-28 ms per CIF block-16 frame.
+every block's search on the previous raster block's MV, so the walk is
+inherently serial.  The plain XLA version (ops/fastme.py, ``lax.scan`` x
+``while_loop``) runs each refinement iteration as several small device
+programs, with the loop predicate read back on every iteration.
 
-This kernel keeps the current frame and the (padded) reference planes in
-VMEM and walks the blocks with the MVP carry in scalar registers.  A
-refinement iteration's six candidates share rows and columns — the five
-MVP-neighbours live on a 3x3 cross around (mvp_x, mvp_y) — so one aligned
-band load plus one row-roll and one col-roll per reference exposes all of
-them as STATIC strided slices (Mosaic requires lane offsets provably
-aligned; dynamic extraction is done with ``pltpu.roll``, never with
-dynamic lane indexing).  The (0, 0) candidate's SAD is block-constant and
-hoisted out of the refinement loop.  A precomputed SAD table was tried and
-rejected: candidate MVs are NOT bounded (a terminal |mv| >= 16 winner seeds
-the next raster block one further — drift chains reach the frame edge), and
-the [-19, 19]^2 table build alone cost ~400 ms/frame on this backend.
+This kernel runs the whole walk of one frame in one Triton program: the
+block loop and the refinement loop are device loops, the MVP carry lives in
+registers, and each candidate window is loaded straight from the reference
+plane with a dynamic-offset (stride 2 for half-pel) load and reduced to its
+SAD in registers.  The planes are read from global memory; a CIF frame's
+reference planes (even four half-pel ones, ~1.6 MB) stay L2-resident.
+Under ``vmap`` (batched configs) each lane becomes one program of the grid.
 
-The planes are padded by PAD on every side so candidate loads clamp into
-bounds; clamped/wrapped windows only produce junk for candidates that are
-geometrically invalid, which are masked to BIG exactly like ops/fastme.py.
+Candidate offsets are clamped into the plane before the load, so no load is
+out of bounds; clamped windows only feed candidates that are geometrically
+invalid, and those are masked to BIG exactly like ops/fastme.py.
 
 Decision-exactness mirrors ops/fastme.py: candidate order (ref-major,
 offset-minor first-strict-minimum), the origin-substring termination quirk
 (winner index <= 1), the |mv| >= 16 bound, geometric validity masking, the
 nRefFrames late-binding comparison count, and the n_valid warm-up masking.
-Parity is asserted by interpret-mode tests (tests/test_pallas_fastme.py)
-and the golden conformance suite; ops/fastme.py remains the fallback for
-ineligible shapes/backends (``use_pallas_fastme``).
+Parity with the XLA walk and golden/me.py is asserted by interpret-mode
+tests (tests/test_pallas_fastme.py) and, compiled, by chip_smoke.py.
 """
 
-import os
 from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 BIG = np.int32(2 ** 30)
 MAX_ITERS = 1024            # safety bound (each iteration strictly improves)
-PAD = 32                    # plane padding (aligned clamped loads)
-LANES = 128                 # result row width (lane-aligned vector stores)
-VMEM_BUDGET = 12 * 2 ** 20
+# one warp: SAD reductions stay in shuffles (on an H100, 1 warp beat 2 and 4
+# in every configuration measured, PERF.md)
+NUM_WARPS = 1
 
 
-def use_pallas_fastme(h: int, w: int, bs: int, n_ref: int, frac: bool) -> bool:
-    """Static gate: aligned-slice scheme needs bs % 8 == 0; planes + frame
-    must fit VMEM; backend must be a TPU."""
-    if os.environ.get("BVC_PALLAS_FASTME", "1") == "0":
-        return False
-    if bs % 8 != 0:
-        return False
-    scale = 2 if frac else 1
-    planes_bytes = n_ref * (scale * h + 2 * PAD) * (scale * w + 2 * PAD)
-    nb = (h // bs) * (w // bs)
-    if planes_bytes + h * w + nb * LANES * 4 > VMEM_BUDGET:
-        return False
-    return jax.default_backend() not in ("cpu",)
-
-
-def _roll_neg(x, s, size, axis):
-    """``jnp.roll(x, -s, axis)`` via a positive dynamic amount: NEGATIVE
-    dynamic rotate amounts on multi-tile vectors are off by one lane tile
-    (+128 lanes / +8 sublanes) on this backend's Mosaic (measured;
-    PROFILE.md section 4) — positive amounts are exact."""
-    return pltpu.roll(x, (size - s % size) % size, axis=axis)
+def use_pallas_fastme() -> bool:
+    """The kernel runs where it is compiled for: the GPU backend."""
+    return jax.default_backend() == "gpu"
 
 
 def _walk_kernel(nv_ref, curr_ref, planes_ref, out_ref, *, nbr, nbc, bs,
-                 scale, n_ref, lim_h, lim_w, cw, pw):
+                 scale, n_ref, lim_h, lim_w):
     span = scale * bs
-    rows_band = span + 16   # base misalignment (<8) + 3-row cross + span
-    pad_h = lim_h + 2 * PAD
     nv = nv_ref[0]
+
+    def window(r, px, py):
+        # planes arrive stacked along rows: reference r starts at r * lim_h
+        px = jnp.clip(px, 0, lim_w - span)
+        py = jnp.clip(py, 0, lim_h - span) + r * lim_h
+        idx = (pl.ds(py, bs, stride=scale), pl.ds(px, bs, stride=scale))
+        return planes_ref[idx].astype(jnp.int32)
 
     def block_loop(b, mvp):
         mvp_x, mvp_y = mvp
-        i = b // nbc
-        j = b % nbc
-        ox = j * bs * scale
-        oy = i * bs * scale
-        crow = pl.multiple_of(i * bs, 8)
-        cband = curr_ref[pl.ds(crow, bs), :].astype(jnp.int32)  # [bs, W]
-        cblk = _roll_neg(cband, j * bs, cw, 1)[:, :bs]
-        if scale == 2:
-            # strided value-slices lower via (unimplemented) gathers: compact
-            # the candidate window's even rows/cols with 0/1 selector matmuls
-            # instead (MXU; int values <= 255 are exact in float32)
-            ra = jax.lax.broadcasted_iota(jnp.int32, (bs, span), 0)
-            xa = jax.lax.broadcasted_iota(jnp.int32, (bs, span), 1)
-            sel_r = (xa == 2 * ra).astype(jnp.float32)           # [bs, span]
-            sel_c = sel_r.T                                      # [span, bs]
+        i = jax.lax.div(b, nbc)  # b >= 0: truncating division is floor
+        j = jax.lax.rem(b, nbc)
+        ox = j * span
+        oy = i * span
+        cblk = curr_ref[pl.ds(i * bs, bs), pl.ds(j * bs, bs)].astype(jnp.int32)
 
-        def win_sad(win):
-            if scale == 2:
-                wc = jnp.dot(jnp.dot(sel_r, win.astype(jnp.float32),
-                                     preferred_element_type=jnp.float32),
-                             sel_c, preferred_element_type=jnp.float32)
-                return jnp.sum(jnp.abs(cblk - wc.astype(jnp.int32)))
-            return jnp.sum(jnp.abs(cblk - win))
+        def sad(r, px, py):
+            return jnp.sum(jnp.abs(cblk - window(r, px, py)))
 
-        # the (0, 0) candidate: block-aligned, constant across iterations
-        def origin_sad(r):
-            orow = pl.multiple_of(oy + PAD, 8)
-            # dynamic rotates require 32-bit lanes: widen before rolling
-            band = planes_ref[r, pl.ds(orow, span), :].astype(jnp.int32)
-            band = _roll_neg(band, ox + PAD, pw, 1)
-            return win_sad(band[:, :span])
-
-        osads = [origin_sad(r) for r in range(n_ref)]
+        # the (0, 0) candidate is block-aligned and constant across iterations
+        osads = [sad(r, ox, oy) for r in range(n_ref)]
 
         def cond(state):
             return (~state[3]) & (state[4] < MAX_ITERS)
 
         def body(state):
             mx, my, _, _, it, cnt = state
-            # candidate cross: rows {my-1, my, my+1}, cols {mx-1, mx, mx+1}
-            py_min = oy + my - 1 + PAD
-            px_min = ox + mx - 1 + PAD
-            py0 = jnp.clip((py_min // 8) * 8, 0, pad_h - rows_band)
-            py0 = pl.multiple_of(py0, 8)
-            base_off = py_min - py0  # in [0, 8) whenever the clip is inert
-
             # XLA candidate order: origin, mvp, top, right, bottom, left
             cand_dx = (jnp.int32(0), mx, mx, mx + 1, mx, mx - 1)
             cand_dy = (jnp.int32(0), my, my - 1, my, my + 1, my)
-            roff = (0, 1, 0, 1, 2, 1)  # row offset of candidates 1..5
-            coff = (0, 1, 1, 2, 1, 0)  # col offset
-
             best = BIG
             bk = jnp.int32(0)
             bdx = jnp.int32(0)
             bdy = jnp.int32(0)
             vcnt = jnp.int32(0)
             for r in range(n_ref):
-                band = planes_ref[r, pl.ds(py0, rows_band), :].astype(jnp.int32)
-                band = _roll_neg(band, base_off, rows_band, 0)
-                band = _roll_neg(band, px_min, pw, 1)
                 for k in range(6):
-                    dx, dy = cand_dx[k], cand_dy[k]
-                    px, py = ox + dx, oy + dy
+                    px, py = ox + cand_dx[k], oy + cand_dy[k]
                     valid = ((px >= 0) & (py >= 0)
                              & (px + span <= lim_w) & (py + span <= lim_h))
                     if r == 0:
                         # comparison counting uses per-OFFSET validity
                         vcnt = vcnt + valid.astype(jnp.int32)
-                    if k == 0:
-                        s = osads[r]
-                    else:
-                        win = band[roff[k] : roff[k] + span,
-                                   coff[k] : coff[k] + span]
-                        s = win_sad(win)
+                    s = osads[r] if k == 0 else sad(r, px, py)
                     s = jnp.where(valid & (r < nv), s, BIG)
                     # first strict minimum in (ref-major, offset-minor) order
                     take = s < best
                     best = jnp.where(take, s, best)
                     bk = jnp.where(take, jnp.int32(k), bk)
-                    bdx = jnp.where(take, dx, bdx)
-                    bdy = jnp.where(take, dy, bdy)
+                    bdx = jnp.where(take, cand_dx[k], bdx)
+                    bdy = jnp.where(take, cand_dy[k], bdy)
             hit_bound = (jnp.abs(bdx) >= 16) | (jnp.abs(bdy) >= 16)
             done = (bk <= 1) | hit_bound  # "origin" substring quirk
             return (bdx, bdy, best, done, it + 1, cnt + vcnt)
@@ -169,17 +108,13 @@ def _walk_kernel(nv_ref, curr_ref, planes_ref, out_ref, *, nbr, nbc, bs,
         init = (mvp_x, mvp_y, BIG, jnp.bool_(False), jnp.int32(0),
                 jnp.int32(0))
         bdx, bdy, best, _, _, cnt = jax.lax.while_loop(cond, body, init)
-        # Mosaic cannot store scalars to VMEM: build the result row as a
-        # vector with an iota-select and store the whole (1, LANES) row
-        olane = jax.lax.broadcasted_iota(jnp.int32, (1, LANES), 1)
-        orow = jnp.where(olane == 0, bdx,
-                         jnp.where(olane == 1, bdy,
-                                   jnp.where(olane == 2, best, cnt)))
-        out_ref[pl.ds(b, 1), :] = orow
+        out_ref[0, b] = bdx
+        out_ref[1, b] = bdy
+        out_ref[2, b] = best
+        out_ref[3, b] = cnt
         return (bdx, bdy)
 
-    jax.lax.fori_loop(0, nbr * nbc, block_loop,
-                      (jnp.int32(0), jnp.int32(0)))
+    jax.lax.fori_loop(0, nbr * nbc, block_loop, (jnp.int32(0), jnp.int32(0)))
 
 
 @partial(jax.jit, static_argnames=("bs", "frac", "interpret"))
@@ -187,7 +122,8 @@ def fast_search_frame_pallas(curr: jnp.ndarray, refs: jnp.ndarray,
                              interp_refs: jnp.ndarray, bs: int, frac: bool,
                              n_valid: jnp.ndarray | None = None,
                              interpret: bool = False):
-    """Drop-in twin of ops/fastme.fast_search_frame as one Pallas kernel.
+    """Drop-in twin of ops/fastme.fast_search_frame as one Pallas kernel
+    (Triton route).
 
     Returns ``(mvs int32 [nbr, nbc, 3], sads int32 [nbr, nbc],
     comps int32 [nbr, nbc])`` with identical decisions."""
@@ -196,15 +132,8 @@ def fast_search_frame_pallas(curr: jnp.ndarray, refs: jnp.ndarray,
     nb = nbr * nbc
     n_ref = refs.shape[0]
     scale = 2 if frac else 1
-    planes = interp_refs if frac else refs
-    # dynamic rotates need lane counts that are multiples of 128: right-pad
-    # widths up (the extra junk columns are never read by valid candidates,
-    # and wrapped reads only feed masked-invalid ones)
-    pw = -(-(scale * w + 2 * PAD) // LANES) * LANES
-    planes_pad = jnp.pad(
-        planes, ((0, 0), (PAD, PAD), (PAD, pw - scale * w - PAD)))
-    cw = -(-w // LANES) * LANES
-    curr_pad = jnp.pad(curr, ((0, 0), (0, cw - w)))
+    planes = (interp_refs if frac else refs).reshape(n_ref * scale * h,
+                                                     scale * w)
     if n_valid is None:
         nv = jnp.full((1,), n_ref, jnp.int32)
         ref_weight = jnp.int32(n_ref * (n_ref + 1) // 2)
@@ -213,23 +142,19 @@ def fast_search_frame_pallas(curr: jnp.ndarray, refs: jnp.ndarray,
         ref_weight = (n_valid * (n_valid + 1) // 2).astype(jnp.int32)
 
     kernel = partial(_walk_kernel, nbr=nbr, nbc=nbc, bs=bs, scale=scale,
-                     n_ref=n_ref, lim_h=scale * h, lim_w=scale * w,
-                     cw=cw, pw=pw)
+                     n_ref=n_ref, lim_h=scale * h, lim_w=scale * w)
     out = pl.pallas_call(
         kernel,
-        out_shape=jax.ShapeDtypeStruct((nb, LANES), jnp.int32),
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-            pl.BlockSpec(memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((4, nb), jnp.int32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
         interpret=interpret,
-    )(nv, curr_pad, planes_pad)
+        name="fastme_walk",
+    )(nv, curr, planes)
 
-    mvs = jnp.concatenate(
-        [out[:, :2], jnp.zeros((nb, 1), jnp.int32)], axis=1  # ref idx 0 quirk
-    ).reshape(nbr, nbc, 3)
-    sads = out[:, 2].reshape(nbr, nbc)
-    comps = (out[:, 3] * ref_weight).reshape(nbr, nbc)
+    mvs = jnp.stack([out[0], out[1], jnp.zeros((nb,), jnp.int32)],  # ref 0 quirk
+                    axis=1).reshape(nbr, nbc, 3)
+    sads = out[2].reshape(nbr, nbc)
+    comps = (out[3] * ref_weight).reshape(nbr, nbc)
     return mvs, sads, comps

@@ -3,8 +3,8 @@
 Replaces the reference's per-pixel Python loop
 (encoder/block_predictor.py:145-177) — the single biggest fixed cost of its
 frame loop — with whole-frame pair means assembled by interleave-reshape
-(stack + reshape), which XLA lowers to cheap copies.  Strided ``.at[::2]``
-scatters are deliberately avoided: TPU lowers them to slow scatter ops.
+(stack + reshape), which XLA lowers to cheap copies instead of strided
+``.at[::2]`` scatters.
 
 Semantics preserved exactly:
 

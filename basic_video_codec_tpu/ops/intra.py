@@ -35,8 +35,8 @@ from . import transform as T
 def _skew(a: jnp.ndarray, nbr: int, nbc: int) -> jnp.ndarray:
     """Diagonal-major marshalling: blocks ``[nbr, nbc, ...]`` -> diagonals
     ``[nbr+nbc-1, nbr, ...]`` with ``out[l+c, l] = a[l, c]`` — pure
-    pad+reshape (frame-sized gathers cost ~6 ms on this backend,
-    PROFILE.md §5).  Positions outside a diagonal are zeros."""
+    pad+reshape, no frame-sized gather.  Positions outside a diagonal are
+    zeros."""
     ndiag = nbr + nbc - 1
     f = a.shape[2:]
     pad = jnp.zeros((nbr, nbr) + f, a.dtype)

@@ -77,8 +77,8 @@ def full_search(curr: jnp.ndarray, refs: jnp.ndarray, interp_refs: jnp.ndarray,
     ONE scan over the candidate set: each step scores the candidate for
     every block (the packed-key running strict-minimum implements the
     reference's first-minimum tie-break exactly) and select-accumulates its
-    pixels into the winners' prediction plane — TPU-friendly whole-frame
-    selects instead of a 4-D gather, with no per-candidate key buffer.
+    pixels into the winners' prediction plane — whole-frame selects
+    instead of a 4-D gather, with no per-candidate key buffer.
     """
     sr = search_range * 2 if frac else search_range
     assert sr <= 127, "search range too large for the (SAD, L1) packed key"

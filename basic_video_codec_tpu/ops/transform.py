@@ -1,19 +1,20 @@
-"""Device transform stack: batched 2D DCT/IDCT as MXU matmuls + fused
+"""Device transform stack: batched 2D DCT/IDCT as matmuls + fused
 quantize / rescale / reconstruct.
 
 Replaces the reference's per-block ``scipy.fftpack.dct`` calls
 (encoder/dct.py:9-18) and per-block quantize/reconstruct
 (dct.py:35-42, Frame.py:197-202) with one batched op over all blocks of a
 frame: ``coeffs = D @ X @ D.T`` where ``D`` is the orthonormal DCT-II matrix —
-two ``[n_blocks, bs, bs] x [bs, bs]`` matmul sweeps that XLA maps straight
-onto the MXU, with the elementwise quantize fused behind them.
+two ``[n_blocks, bs, bs] x [bs, bs]`` matmul sweeps, with the elementwise
+quantize fused behind them.
 
 Precision note (the "bit-exact" story): the transform is defined as the
 float32 matmul DCT with ``precision=HIGHEST``.  The golden model's scipy FFT
 path computes the same real transform with its own float32 rounding; the two
 agree to ~1e-6 relative, so a quantized coefficient can differ by ±1 only when
-``dct/Q`` lands within float error of a rounding boundary (empirically <0.01%
-of coefficients at QP 0, none at higher QPs).  What is *exact* by
+``dct/Q`` lands within float error of a rounding boundary (chip_smoke.py
+counts them at QP 0 on frame-difference residuals; PARITY.md states the
+bound).  ``HIGHEST`` keeps the GPU's matmuls out of TF32.  What is *exact* by
 construction: everything downstream of the quantized integers — entropy bits,
 reconstruction arithmetic, and decoder/encoder agreement (decode == recon
 bit-for-bit, since both run these same kernels).
@@ -53,9 +54,10 @@ def dct_matrix_int(n: int, shift: int = EXACT_SHIFT) -> np.ndarray:
     """Fixed-point DCT-II basis ``round(D * 2^shift)`` (int32).
 
     Powers the optional *exact transform* mode: integer matmuls are
-    bit-deterministic on every backend (verified exact on TPU for the value
-    ranges used), so streams encoded with ``exact_transform=True`` are
-    bit-identical across CPU/TPU — something no float DCT can guarantee.
+    bit-deterministic on every backend (an H100 reproduces the NumPy twin
+    and the CPU backend bit for bit over the full value ranges), so streams
+    encoded with ``exact_transform=True`` are bit-identical across CPU and
+    GPU — something no float DCT can guarantee.
     Basis quantization error is ~2^-13, far below the codec's own
     quantization at any QP.
     """
@@ -195,7 +197,7 @@ def reconstruct(qcoeffs: jnp.ndarray, Q: jnp.ndarray, pred_blocks: jnp.ndarray, 
 
 
 def forward_coeffs(residual_blocks: jnp.ndarray, bs: int, exact: bool) -> jnp.ndarray:
-    """Mode dispatch: float32 MXU DCT (reference parity) or integer-exact."""
+    """Mode dispatch: float32 matmul DCT (reference parity) or integer-exact."""
     if exact:
         return dct2_exact(residual_blocks.astype(jnp.int32), jnp.asarray(dct_matrix_int(bs)))
     return dct2(residual_blocks.astype(jnp.float32), jnp.asarray(dct_matrix(bs)))

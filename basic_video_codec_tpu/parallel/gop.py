@@ -6,7 +6,7 @@ GOPs and a batch of GOPs is embarrassingly parallel.  This module wraps the
 *production* GOP program — ``models.chunk.encode_chunk``, the same compiled
 scan the single-chip pipeline dispatches — in a ``shard_map`` that places
 ONE GOP on each device of the mesh's ``data`` axis (no collectives inside a
-step, so the axis can also span hosts/DCN).
+step, so the axis could also span hosts).
 
 The product path is :func:`gop_batch_fn`, used by
 ``models.pipeline.encode_video`` when ``EncoderConfig.parallel_gops > 1``:

@@ -1,17 +1,17 @@
 """Device mesh construction.
 
 The reference is one Python thread (SURVEY.md section 2: no parallelism of any
-kind); the TPU framework scales on two orthogonal axes instead:
+kind); this framework scales on two orthogonal axes instead:
 
 * ``data``  — independent work: sequences, GOPs (each GOP restarts from an
   I-frame with cleared references, so GOPs are embarrassingly parallel), or
   sweep configurations (QP / bitrate grids from the RD experiment drivers).
 * ``space`` — bands of block rows within a frame.  Motion search needs a halo
-  of ``search_range`` rows from neighbouring bands, exchanged over ICI with
+  of ``search_range`` rows from neighbouring bands, exchanged with
   ``lax.ppermute`` (see spatial.py).
 
-Collectives ride ICI inside one host's mesh; the ``data`` axis is the one to
-place across hosts (DCN) since it never communicates inside a step.
+The mesh is plain device order: the GPUs of one host reach each other all to
+all over NVLink, so no placement is better than another.
 """
 
 import math

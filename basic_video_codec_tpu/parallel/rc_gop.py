@@ -37,7 +37,7 @@ and is then constant on steady content, so the predictor hits almost
 always; a scene cut costs at most one re-dispatch of one GOP.  On hits all
 devices compute concurrently; the serial chain only re-appears on misses.
 This design replaces the reference's inherently serial two-pass loop
-(reference encoder.py:85-98) with TPU-native speculation instead of trying
+(reference encoder.py:85-98) with speculation across devices instead of trying
 to translate it.
 """
 
@@ -80,7 +80,7 @@ def run_two_pass_sharded(params, ec, f_in, tbl_np, write_out):
 
     from ..models.pipeline import (INTER, MAX_CHUNK, _acct, _finalize_compact,
                                    _prev_avg_qp, _rebuild_frame, _stage,
-                                   _two_pass_seed_scalars)
+                                   _two_pass_seed_scalars, shard_device_count)
     from ..models.two_pass import encode_chunk_two_pass
 
     bs = ec.block_size
@@ -116,7 +116,7 @@ def run_two_pass_sharded(params, ec, f_in, tbl_np, write_out):
     # the serial / batch / sharded lanes)
     exp_p, _ = _two_pass_seed_scalars(ec, bs)
 
-    D = max(1, min(len(jax.devices()), ec.parallel_gops))
+    D = shard_device_count(ec)
     devices = jax.devices()[:D]
 
     # per-device constants (a jit program's args must share one device)
@@ -328,7 +328,8 @@ def run_two_pass_sharded(params, ec, f_in, tbl_np, write_out):
         _pl.LAST_RUN_STATS.clear()
         _pl.LAST_RUN_STATS.update(overflow_frames=overflow_frames[0],
                                   frames=n_read, rc_seed_misses=miss_count[0],
-                                  gops=g, rc_seed_trace=seed_trace,
+                                  gops=g, devices=D,
+                                  rc_seed_trace=seed_trace,
                                   rc_alt_hits=alt_hits[0])
         if n_read and overflow_frames[0] > max(n_read // 50, 2):
             logger.warning(

@@ -1,9 +1,9 @@
-"""Spatially-sharded P-frame encode step (shard_map + ICI halo exchange).
+"""Spatially-sharded P-frame encode step (shard_map + halo exchange).
 
 One frame is split into bands of block rows across the ``space`` mesh axis;
 independent sequences ride the ``data`` axis.  Motion search at a band edge
 needs ``search_range`` rows of the reference frame owned by the neighbouring
-device — those halos are exchanged with two ``lax.ppermute`` shifts over ICI
+device — those halos are exchanged with two ``lax.ppermute`` shifts
 before the purely-local batched search runs (the same shift-and-box-reduce
 kernel as ops/me.py, restricted to the band).  Fractional ME interpolates
 the halo-extended band locally: every half-pel value a *valid* candidate can
@@ -140,7 +140,7 @@ def sharded_pframe_step(mesh, bs: int, search_range: int, qp: int, h_total: int,
     zz = zigzag_indices(bs)
 
     def local_fn(curr, ref):
-        # halo exchange over ICI: my top r reference rows go down, bottom r go up
+        # halo exchange: my top r reference rows go down, bottom r go up
         idx = jax.lax.axis_index("space")
         down = [(i, i + 1) for i in range(n_space - 1)]
         up = [(i + 1, i) for i in range(n_space - 1)]

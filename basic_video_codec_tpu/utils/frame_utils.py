@@ -1,7 +1,7 @@
 """Array-level frame helpers.
 
 Unlike the reference (common.py:50-93), which shuttles Python *lists* of blocks
-around, the TPU-native design keeps a frame's blocks as one contiguous
+around, the device design keeps a frame's blocks as one contiguous
 ``[n_rows, n_cols, bs, bs]`` (or flattened ``[n_blocks, bs, bs]``) tensor so
 device kernels can vmap over them.  List-based ``split_into_blocks`` /
 ``merge_blocks`` are kept for the host-side entropy layer, where raster order
@@ -76,7 +76,7 @@ def merge_blocks(blocks, block_size: int, frame_shape) -> np.ndarray:
 
 
 def frame_to_blocks(frame: np.ndarray, block_size: int) -> np.ndarray:
-    """``[H, W] -> [n_rows, n_cols, bs, bs]`` zero-copy-ish reshape (TPU layout)."""
+    """``[H, W] -> [n_rows, n_cols, bs, bs]`` zero-copy-ish reshape (device layout)."""
     h, w = frame.shape
     return (
         frame.reshape(h // block_size, block_size, w // block_size, block_size)

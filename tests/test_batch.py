@@ -123,7 +123,7 @@ def test_mixed_eligibility_falls_back_serial(tmp_path):
     ]
     assert not _batchable(runs[2])
     res = encode_videos_batched(runs, results_csv_path=None)
-    assert res.n_batched == 1  # the two fixed-QP tpu-backend runs
+    assert res.n_batched == 1  # the two fixed-QP device-backend runs
     for p in [_params(ds, 3), _params(ds, 6)]:
         serial_encode(p, results_csv_path=None)
     dispatch_encode(_params(ds, 3, backend="golden"), results_csv_path=None)
@@ -278,8 +278,7 @@ def test_two_pass_group_matches_serial(tmp_path):
 
 
 def test_long_groups_route_serial(tmp_path):
-    """Groups longer than BATCH_MAX_FRAMES route through the serial loop
-    (measured faster there at every long shape — PROFILE.md §12b/12c):
+    """Groups longer than BATCH_MAX_FRAMES route through the serial loop:
     n_batched == 0, artifacts still correct (they ARE serial encodes)."""
     from basic_video_codec_tpu.models import batch as B
 

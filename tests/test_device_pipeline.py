@@ -1,9 +1,9 @@
-"""End-to-end conformance of the TPU pipeline.
+"""End-to-end conformance of the device pipeline.
 
 Guarantees encoded here:
 
-1. SELF-CONSISTENCY (hard invariant): the TPU decoder bit-exactly reproduces
-   the TPU encoder's reconstructed frames for every feature combination.
+1. SELF-CONSISTENCY (hard invariant): the device decoder bit-exactly reproduces
+   the device encoder's reconstructed frames for every feature combination.
 2. GOLDEN PARITY: artifacts match the reference-exact golden model exactly at
    QP >= 6, and within the documented float-DCT tolerance below that
    (PSNR delta < 0.06 dB, bitstream size within 0.5%).
@@ -23,8 +23,8 @@ from basic_video_codec_tpu.config import EncoderConfig, InputParameters
 from basic_video_codec_tpu.golden.decoder import decode_video as golden_decode
 from basic_video_codec_tpu.golden.encoder import encode_video as golden_encode
 from basic_video_codec_tpu.io.fileio import FileIOHelper
-from basic_video_codec_tpu.models.pipeline import decode_video as tpu_decode
-from basic_video_codec_tpu.models.pipeline import encode_video as tpu_encode
+from basic_video_codec_tpu.models.pipeline import decode_video as dev_decode
+from basic_video_codec_tpu.models.pipeline import encode_video as dev_encode
 from basic_video_codec_tpu.tools import ygen
 
 logging.getLogger().setLevel(logging.ERROR)
@@ -38,7 +38,7 @@ def _run_both(tmp_path, name, W=W, H=H, N=N, **cfg):
                 resolution=(W, H))
     base.update(cfg)
     ios = {}
-    for sub, enc, dec in (("g", golden_encode, golden_decode), ("t", tpu_encode, tpu_decode)):
+    for sub, enc, dec in (("g", golden_encode, golden_decode), ("t", dev_encode, dev_decode)):
         d = tmp_path / name / sub
         d.mkdir(parents=True, exist_ok=True)
         ygen.write_y_file(str(d / "t.y"), y)
@@ -65,10 +65,10 @@ CONFIGS = [
 def test_self_consistency_and_parity(tmp_path, name, cfg):
     iog, iot = _run_both(tmp_path, name, **cfg)
 
-    # 1. hard invariant: tpu decode == tpu recon
+    # 1. hard invariant: device decode == device recon
     rt = np.fromfile(iot.get_mc_reconstructed_file_name(), np.uint8)
     dt = np.fromfile(iot.get_mc_decoded_file_name(), np.uint8)
-    assert np.array_equal(rt, dt), "TPU decoder must bit-exactly match encoder recon"
+    assert np.array_equal(rt, dt), "device decoder must bit-exactly match encoder recon"
 
     # 2. golden parity
     rg = np.fromfile(iog.get_mc_reconstructed_file_name(), np.uint8)
@@ -153,8 +153,8 @@ def test_devbits_transport(tmp_path, monkeypatch, cfg):
         p = InputParameters(str(d / "t.y"), sz.get("W", W), sz.get("H", H),
                             EncoderConfig(**base),
                             frames_to_process=sz.get("N", N))
-        tpu_encode(p, results_csv_path=None)
-        tpu_decode(p)
+        dev_encode(p, results_csv_path=None)
+        dev_decode(p)
         ios[env] = FileIOHelper(p, create_dirs=False)
     # (metrics.csv carries wall-time columns, so it is excluded)
     for fn in ("get_encoded_file_name", "get_mc_reconstructed_file_name",
@@ -233,7 +233,7 @@ def test_scene_change_second_pass(tmp_path, nref):
                RCflag=3, targetBR=1_200_000, resolution=(Wq, Hq),
                nRefFrames=nref)
     ios = {}
-    for sub, enc, dec in (("g", golden_encode, golden_decode), ("t", tpu_encode, tpu_decode)):
+    for sub, enc, dec in (("g", golden_encode, golden_decode), ("t", dev_encode, dev_decode)):
         d = tmp_path / sub
         d.mkdir()
         ygen.write_y_file(str(d / "t.y"), frames)
@@ -272,7 +272,7 @@ def test_scene_change_second_pass(tmp_path, nref):
     assert np.array_equal(rt, dt)
 
 
-def test_non_multiple_resolution_tpu(tmp_path):
+def test_non_multiple_resolution_device(tmp_path):
     """Padding path on the device pipeline: 100x60 at block 16 pads to 112x64;
     decode must still bit-match the encoder reconstruction."""
     Wn, Hn, Nn = 100, 60, 4
@@ -280,8 +280,8 @@ def test_non_multiple_resolution_tpu(tmp_path):
     ygen.write_y_file(y_path, ygen.moving_sequence(Wn, Hn, Nn, seed=2))
     ec = EncoderConfig(16, 2, 2, 4, resolution=(Wn, Hn))
     params = InputParameters(y_path, Wn, Hn, ec, Nn)
-    tpu_encode(params, results_csv_path=None)
-    tpu_decode(params)
+    dev_encode(params, results_csv_path=None)
+    dev_decode(params)
     io = FileIOHelper(params, create_dirs=False)
     rec = np.fromfile(io.get_mc_reconstructed_file_name(), np.uint8)
     dec = np.fromfile(io.get_mc_decoded_file_name(), np.uint8)
@@ -366,7 +366,7 @@ def test_decode_compact_transfers(tmp_path, cfg, monkeypatch):
     ygen.write_y_file(str(d / "t.y"), y)
     params = InputParameters(str(d / "t.y"), W, H, EncoderConfig(**base),
                              frames_to_process=N)
-    tpu_encode(params, results_csv_path=None)
+    dev_encode(params, results_csv_path=None)
     io = FileIOHelper(params, create_dirs=False)
     got = {}
     for mode in ("1", "0"):
@@ -397,7 +397,7 @@ def test_decode_compact_overflow_fallback(tmp_path, monkeypatch):
     ygen.write_y_file(str(d / "t.y"), y)
     ec = EncoderConfig(8, 2, 4, 5, resolution=(W, H))
     params = InputParameters(str(d / "t.y"), W, H, ec, frames_to_process=N)
-    tpu_encode(params, results_csv_path=None)
+    dev_encode(params, results_csv_path=None)
     io = FileIOHelper(params, create_dirs=False)
     rec = hashlib.md5(
         open(io.get_mc_reconstructed_file_name(), "rb").read()).hexdigest()
@@ -429,12 +429,12 @@ _ODD_RC_TABLE = {
 def test_rate_control_odd_resolution(tmp_path, rcflag):
     """RC at a non-block-multiple resolution (100x60, bs=16, pads to 112x64):
     rows-left and smalls layouts must use the padded geometry end-to-end
-    (PARITY.md divergence 6; round-1 ADVICE items 1-2).  exact_transform
-    makes golden and TPU streams byte-identical at every chosen QP."""
+    (PARITY.md divergence 6).  exact_transform
+    makes golden and device streams byte-identical at every chosen QP."""
     Wn, Hn, Nn = 100, 60, 5
     y = ygen.moving_sequence(Wn, Hn, Nn, seed=9)
     ios = {}
-    for sub, enc, dec in (("g", golden_encode, golden_decode), ("t", tpu_encode, tpu_decode)):
+    for sub, enc, dec in (("g", golden_encode, golden_decode), ("t", dev_encode, dev_decode)):
         d = tmp_path / sub
         d.mkdir()
         ygen.write_y_file(str(d / "t.y"), y)
@@ -464,7 +464,7 @@ def test_truncated_input_raises(tmp_path, nref):
         f.write(b"\x80" * (W * H // 2))  # half a tail frame
     p = InputParameters(y_path, W, H, ec, frames_to_process=10)
     with pytest.raises(ValueError):
-        tpu_encode(p, results_csv_path=None)
+        dev_encode(p, results_csv_path=None)
     io = FileIOHelper(p, create_dirs=False)
     rec = np.fromfile(io.get_mc_reconstructed_file_name(), np.uint8)
     assert rec.size == W * H * 3, "full frames before the truncated tail must be written"
@@ -482,12 +482,12 @@ def test_decode_truncated_and_empty_streams(tmp_path):
     y_path = str(tmp_path / "t.y")
     ygen.write_y_file(y_path, ygen.moving_sequence(W, H, 5, seed=4))
     p = InputParameters(y_path, W, H, ec, frames_to_process=5)
-    tpu_encode(p, results_csv_path=None)
+    dev_encode(p, results_csv_path=None)
     io = FileIOHelper(p, create_dirs=False)
     enc_path = io.get_encoded_file_name()
     with open(enc_path, "rb") as f:
         full = f.read()
-    tpu_decode(p)
+    dev_decode(p)
     baseline = np.fromfile(io.get_mc_decoded_file_name(), np.uint8)
     assert baseline.size == W * H * 5
 
@@ -503,7 +503,7 @@ def test_decode_truncated_and_empty_streams(tmp_path):
     def decode_with(stream_bytes):
         with open(enc_path, "wb") as f:
             f.write(stream_bytes)
-        tpu_decode(p)
+        dev_decode(p)
         return np.fromfile(io.get_mc_decoded_file_name(), np.uint8)
 
     try:
@@ -531,8 +531,8 @@ def test_short_and_empty_inputs(tmp_path):
     short = str(tmp_path / "short.y")
     ygen.write_y_file(short, ygen.moving_sequence(W, H, 2, seed=1))
     p = InputParameters(short, W, H, ec, frames_to_process=10)
-    tpu_encode(p, results_csv_path=None)
-    tpu_decode(p)
+    dev_encode(p, results_csv_path=None)
+    dev_decode(p)
     io = FileIOHelper(p, create_dirs=False)
     rec = np.fromfile(io.get_mc_reconstructed_file_name(), np.uint8)
     dec = np.fromfile(io.get_mc_decoded_file_name(), np.uint8)
@@ -541,7 +541,7 @@ def test_short_and_empty_inputs(tmp_path):
     empty = str(tmp_path / "empty.y")
     open(empty, "wb").close()
     p = InputParameters(empty, W, H, ec, frames_to_process=5)
-    tpu_encode(p, results_csv_path=None)
+    dev_encode(p, results_csv_path=None)
     io = FileIOHelper(p, create_dirs=False)
     assert os.path.getsize(io.get_encoded_file_name()) == 0
 
@@ -558,12 +558,12 @@ def test_rerun_shrinks_artifacts(tmp_path):
         ygen.write_y_file(str(tmp_path / sub / "s.y"), y)
     p8 = InputParameters(str(tmp_path / "reused" / "s.y"), W, H, ec,
                          frames_to_process=8)
-    tpu_encode(p8, results_csv_path=None)
+    dev_encode(p8, results_csv_path=None)
     ios = {}
     for sub in ("reused", "fresh"):
         p4 = InputParameters(str(tmp_path / sub / "s.y"), W, H, ec,
                              frames_to_process=4)
-        tpu_encode(p4, results_csv_path=None)
+        dev_encode(p4, results_csv_path=None)
         ios[sub] = FileIOHelper(p4, create_dirs=False)
     for get in ("get_encoded_file_name", "get_mc_reconstructed_file_name",
                 "get_quant_dct_coff_fh_file_name",
@@ -571,7 +571,7 @@ def test_rerun_shrinks_artifacts(tmp_path):
                 "get_residual_wo_mc_file_name", "get_mv_file_name"):
         assert filecmp.cmp(getattr(ios["reused"], get)(),
                            getattr(ios["fresh"], get)(), shallow=False), get
-    tpu_decode(InputParameters(str(tmp_path / "reused" / "s.y"), W, H, ec,
+    dev_decode(InputParameters(str(tmp_path / "reused" / "s.y"), W, H, ec,
                                frames_to_process=4))
     rec = np.fromfile(ios["reused"].get_mc_reconstructed_file_name(), np.uint8)
     dec = np.fromfile(ios["reused"].get_mc_decoded_file_name(), np.uint8)
@@ -598,7 +598,7 @@ def test_finalize_failure_leaves_clean_prefix(tmp_path, monkeypatch):
     ec = EncoderConfig(8, 2, 3, 4, resolution=(W, H))
     p = InputParameters(src, W, H, ec, frames_to_process=6)
     with pytest.raises(RuntimeError, match="injected"):
-        tpu_encode(p, results_csv_path=None)
+        dev_encode(p, results_csv_path=None)
     io = FileIOHelper(p, create_dirs=False)
     n = os.path.getsize(io.get_mc_reconstructed_file_name())
     assert n % (W * H) == 0 and n // (W * H) <= 3  # frames 1..3 at most

@@ -129,3 +129,18 @@ class TestZigzag:
         for n in (2, 4, 8, 16):
             idx = zigzag_indices(n)
             assert sorted(idx.tolist()) == list(range(n * n))
+
+    @pytest.mark.parametrize("n", [8, 16])
+    def test_device_zigzag_rows_match_reference(self, n):
+        """ops/bitlen.zigzag_rows (the device scan order used for bit
+        pricing and packing) equals the reference zigzag of every block."""
+        import jax.numpy as jnp
+
+        from basic_video_codec_tpu.ops.bitlen import zigzag_rows
+
+        rng = np.random.default_rng(n)
+        blocks = rng.integers(-2040, 2040, size=(3, 5, n, n)).astype(np.int16)
+        got = np.asarray(zigzag_rows(jnp.asarray(blocks.reshape(3, 5, n * n)), n))
+        want = np.array([[zigzag_order(b) for b in row] for row in blocks])
+        assert got.dtype == np.int32
+        assert np.array_equal(got, want)

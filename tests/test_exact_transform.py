@@ -2,7 +2,7 @@
 
 The float reference cannot guarantee identical bitstreams across float
 implementations (PARITY.md); with ``exact_transform=True`` the DCT/IDCT run
-as integer matmuls (deterministic everywhere), so golden (NumPy) and the TPU
+as integer matmuls (deterministic everywhere), so golden (NumPy) and the device
 pipeline must produce IDENTICAL artifacts even at QP 0 — precisely where the
 float paths diverge.
 """
@@ -17,8 +17,8 @@ from basic_video_codec_tpu.config import EncoderConfig, InputParameters
 from basic_video_codec_tpu.golden.decoder import decode_video as golden_decode
 from basic_video_codec_tpu.golden.encoder import encode_video as golden_encode
 from basic_video_codec_tpu.io.fileio import FileIOHelper
-from basic_video_codec_tpu.models.pipeline import decode_video as tpu_decode
-from basic_video_codec_tpu.models.pipeline import encode_video as tpu_encode
+from basic_video_codec_tpu.models.pipeline import decode_video as dev_decode
+from basic_video_codec_tpu.models.pipeline import encode_video as dev_encode
 from basic_video_codec_tpu.tools import ygen
 
 logging.getLogger().setLevel(logging.ERROR)
@@ -47,7 +47,7 @@ def _run(tmp_path, sub, enc, dec, **cfg):
 ])
 def test_exact_mode_bit_identical_across_backends(tmp_path, cfg):
     iog = _run(tmp_path, "g", golden_encode, golden_decode, **cfg)
-    iot = _run(tmp_path, "t", tpu_encode, tpu_decode, **cfg)
+    iot = _run(tmp_path, "t", dev_encode, dev_decode, **cfg)
     for get in ("get_encoded_file_name", "get_mc_reconstructed_file_name",
                 "get_mc_decoded_file_name", "get_quant_dct_coff_fh_file_name"):
         assert filecmp.cmp(getattr(iog, get)(), getattr(iot, get)(), shallow=False), get
@@ -68,7 +68,7 @@ def test_exact_mode_quality_matches_float_mode(tmp_path):
         ygen.write_y_file(str(d / "t.y"), ygen.moving_sequence(W, H, N, seed=11))
         ec = EncoderConfig(8, 2, 4, 3, resolution=(W, H), exact_transform=exact)
         params = InputParameters(str(d / "t.y"), W, H, ec, N)
-        tpu_encode(params, results_csv_path=None)
+        dev_encode(params, results_csv_path=None)
         io = FileIOHelper(params, create_dirs=False)
         rec = np.fromfile(io.get_mc_reconstructed_file_name(), np.uint8).astype(np.float64)
         src = ygen.moving_sequence(W, H, N, seed=11).ravel()

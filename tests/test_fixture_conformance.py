@@ -12,7 +12,7 @@ statistics (tools/ygen.camera_sequence: multi-octave ≈1/f detail, subpixel
 pan+zoom, luma-dependent sensor grain, hard cut at frame 6) — the stand-in
 for the reference's unhydrated LFS sequences (foreman/e3 CIF, reference
 results/rd_experiment_results.csv).  The CIF tests pin what the reference's
-published numbers were measured on: golden<->TPU parity at the deliverable
+published numbers were measured on: golden<->device parity at the deliverable
 shape class, transport cap overflow rate < 1%, and RC bit accuracy.
 """
 
@@ -26,8 +26,8 @@ from basic_video_codec_tpu.config import EncoderConfig, InputParameters
 from basic_video_codec_tpu.golden.decoder import decode_video as golden_decode
 from basic_video_codec_tpu.golden.encoder import encode_video as golden_encode
 from basic_video_codec_tpu.io.fileio import FileIOHelper
-from basic_video_codec_tpu.models.pipeline import decode_video as tpu_decode
-from basic_video_codec_tpu.models.pipeline import encode_video as tpu_encode
+from basic_video_codec_tpu.models.pipeline import decode_video as dev_decode
+from basic_video_codec_tpu.models.pipeline import encode_video as dev_encode
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "grain_cut_qcif.y")
 W, H, N = 176, 144, 8
@@ -49,13 +49,13 @@ def _run(tmp_path, sub, enc, dec, **cfg):
 @pytest.mark.parametrize("qp", [0, 4, 8])
 def test_grain_parity_and_invariant(tmp_path, qp):
     """QP 0 on grain content maximizes nonzero coefficients and float-edge
-    exposure: the TPU stream must stay inside the documented tolerance vs
+    exposure: the device stream must stay inside the documented tolerance vs
     golden, decode must equal recon bit-for-bit, and compact-transfer
     escape/overflow paths must rebuild artifacts exactly."""
     cfg = dict(block_size=8, search_range=2, I_Period=4, quantization_factor=qp,
                resolution=(W, H))
     iog = _run(tmp_path, f"g{qp}", golden_encode, golden_decode, **cfg)
-    iot = _run(tmp_path, f"t{qp}", tpu_encode, tpu_decode, **cfg)
+    iot = _run(tmp_path, f"t{qp}", dev_encode, dev_decode, **cfg)
 
     rt = np.fromfile(iot.get_mc_reconstructed_file_name(), np.uint8)
     dt = np.fromfile(iot.get_mc_decoded_file_name(), np.uint8)
@@ -80,7 +80,7 @@ def test_grain_exact_transform_byte_identical_qp0(tmp_path):
     cfg = dict(block_size=8, search_range=2, I_Period=4, quantization_factor=0,
                resolution=(W, H), exact_transform=True)
     iog = _run(tmp_path, "ge", golden_encode, golden_decode, **cfg)
-    iot = _run(tmp_path, "te", tpu_encode, tpu_decode, **cfg)
+    iot = _run(tmp_path, "te", dev_encode, dev_decode, **cfg)
     for get in ("get_encoded_file_name", "get_mc_reconstructed_file_name",
                 "get_mc_decoded_file_name", "get_quant_dct_coff_fh_file_name",
                 "get_residual_w_mc_file_name", "get_residual_wo_mc_file_name",
@@ -109,8 +109,8 @@ def _run_cam(tmp_path, sub, enc, dec=None, n=Nc, **cfg):
 
 @pytest.mark.slow
 def test_cam_cif_parity_deliverable_class(tmp_path):
-    """CIF end-to-end golden parity at the shape class the hardware script
-    validates (scripts/tpu_validate.py) — RC3 + fastME + nRefFrames 2,
+    """CIF end-to-end golden parity at the deliverable shape class
+    (chip_smoke.py validates it on the GPU) — RC3 + fastME + nRefFrames 2,
     block 16, 5 frames on camera-statistics content.  This is the layout
     class where slice bugs live (the round-1 nb-mis-slice was exactly a
     shape-class bug the small tests didn't reach)."""
@@ -118,7 +118,7 @@ def test_cam_cif_parity_deliverable_class(tmp_path):
                quantization_factor=6, RCflag=3, targetBR=2_400_000,
                fastME=True, nRefFrames=2, resolution=(Wc, Hc))
     iog = _run_cam(tmp_path, "g", golden_encode, golden_decode, n=5, **cfg)
-    iot = _run_cam(tmp_path, "t", tpu_encode, tpu_decode, n=5, **cfg)
+    iot = _run_cam(tmp_path, "t", dev_encode, dev_decode, n=5, **cfg)
 
     rt = np.fromfile(iot.get_mc_reconstructed_file_name(), np.uint8)
     dt = np.fromfile(iot.get_mc_decoded_file_name(), np.uint8)
@@ -152,7 +152,7 @@ def test_cam_cif_transport_overflow_rate(tmp_path, cfg):
     reference's numbers come from."""
     from basic_video_codec_tpu.models import pipeline
 
-    _run_cam(tmp_path, "o", tpu_encode, resolution=(Wc, Hc), **cfg)
+    _run_cam(tmp_path, "o", dev_encode, resolution=(Wc, Hc), **cfg)
     stats = pipeline.LAST_RUN_STATS
     assert stats["frames"] == Nc
     rate = stats["overflow_frames"] / stats["frames"]
@@ -167,7 +167,7 @@ def test_cam_cif_rc_bit_accuracy(tmp_path):
     cfg = dict(block_size=16, search_range=2, I_Period=8,
                quantization_factor=6, RCflag=3, targetBR=2_400_000,
                resolution=(Wc, Hc), fastME=True)
-    iot = _run_cam(tmp_path, "rc", tpu_encode, **cfg)
+    iot = _run_cam(tmp_path, "rc", dev_encode, **cfg)
     total_bits = os.path.getsize(iot.get_encoded_file_name()) * 8
     target = 2_400_000 / 30 * Nc  # frame budget x frames (RateControl.py:5-6)
     assert 0.5 < total_bits / target < 1.5, (total_bits, target)
@@ -180,7 +180,7 @@ def test_grain_scene_change_rc3(tmp_path):
     cfg = dict(block_size=16, search_range=2, I_Period=8, quantization_factor=9,
                RCflag=3, targetBR=1_200_000, resolution=(W, H))
     iog = _run(tmp_path, "grc", golden_encode, golden_decode, **cfg)
-    iot = _run(tmp_path, "trc", tpu_encode, tpu_decode, **cfg)
+    iot = _run(tmp_path, "trc", dev_encode, dev_decode, **cfg)
 
     def modes_of(path):
         with open(path, "rb") as f:

@@ -41,7 +41,7 @@ class TestTransform:
         """Reconstruction shares the float-DCT edge: the matmul IDCT and
         scipy's FFT IDCT differ by ~1e-4, so round(idct + pred) may flip by
         ±1 where the true value sits on a .5 boundary.  Within one backend the
-        decoder is bit-exact (test_tpu_pipeline self-consistency)."""
+        decoder is bit-exact (test_device_pipeline self-consistency)."""
         rng = np.random.default_rng(10 * bs + qp)
         res = rng.integers(-255, 256, size=(100, bs, bs)).astype(np.int16)
         pred = rng.integers(0, 256, size=(100, bs, bs)).astype(np.int16)

@@ -483,7 +483,7 @@ def test_fused_rebuild_matches_staged(tmp_path, monkeypatch, cfg):
 
 
 def test_qcap_fraction_classes():
-    """Prefix-cap sizing classes (measured qt peaks, PROFILE.md): RC
+    """Prefix-cap sizing classes (measured qt peaks): RC
     carries 3/8 (budget feedback bounds prefixes); fixed qp>=5 reaches
     ~49% at block 16 / r=1 (5/8); fixed qp 3-4 reach ~53% at r=4 (3/4);
     fixed qp<=2 can fill the plane (whole-plane cap — overflow
@@ -699,7 +699,7 @@ def test_tail_mvd_roundtrip():
 
 def test_compact_stream_sort_scatter_parity(monkeypatch):
     """The sort- and scatter-based compact_stream implementations must be
-    byte-identical (the TPU backend runs sort, the CPU backend scatter —
+    byte-identical (the GPU backend runs sort, the CPU backend scatter —
     both feed the same host parsers and cross-backend artifact tests)."""
     import jax.numpy as jnp
 
@@ -711,7 +711,8 @@ def test_compact_stream_sort_scatter_parity(monkeypatch):
         p16 = jnp.asarray(rng.integers(-3000, 3000, n), dtype=jnp.int16)
         outs = {}
         for mode in ("0", "1"):
-            monkeypatch.setattr(PK, "_COMPACT_MODE", mode)
+            monkeypatch.setattr(PK, "_use_sort_compaction",
+                                lambda m=mode: m == "1")
             outs[mode] = PK.compact_stream(keep, (p8, p16), cap)
         for a, b in zip(outs["0"], outs["1"]):
             assert np.array_equal(np.asarray(a), np.asarray(b)), (n, cap)
@@ -738,7 +739,8 @@ def test_pack_qdct_and_joint_sort_scatter_parity(monkeypatch):
     mv = rng.integers(-7, 8, 2 * nb).astype(np.int32)
     outs = {}
     for mode in ("0", "1"):
-        monkeypatch.setattr(PK, "_COMPACT_MODE", mode)
+        monkeypatch.setattr(PK, "_use_sort_compaction",
+                            lambda m=mode: m == "1")
         outs[mode] = (
             PK.pack_qdct(jnp.asarray(q), bs, capq, jnp.int16, True)
             + PK.pack_joint(jnp.asarray(recon), jnp.asarray(gr),
@@ -749,3 +751,13 @@ def test_pack_qdct_and_joint_sort_scatter_parity(monkeypatch):
         )
     for i, (a, b) in enumerate(zip(outs["0"], outs["1"])):
         assert np.array_equal(np.asarray(a), np.asarray(b)), i
+
+
+@pytest.mark.parametrize("backend,sort", [("cpu", False), ("gpu", True)])
+def test_compaction_choice_by_backend(monkeypatch, backend, sort):
+    """Sort compaction on the GPU (a dump-slot scatter is orders of
+    magnitude slower there), scatter on the CPU."""
+    import jax
+
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert PK._use_sort_compaction() is sort

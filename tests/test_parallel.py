@@ -277,3 +277,20 @@ class TestSeedPredictor:
         trues = [t for _, _, t in stats["rc_seed_trace"]]
         assert len(set(trues)) > 1, f"content failed to drift: {trues}"
         assert stats["rc_seed_misses"] <= 1, stats["rc_seed_trace"]
+
+
+def test_parallel_gops_beyond_devices_is_an_error(tmp_path):
+    """parallel_gops asks for one GOP per device; more than JAX sees is an
+    error, never a silent cap."""
+    import jax
+
+    from basic_video_codec_tpu.config import EncoderConfig, InputParameters
+    from basic_video_codec_tpu.models.pipeline import encode_video
+
+    n = len(jax.devices()) + 1
+    y = tmp_path / "t.y"
+    ygen.write_y_file(str(y), ygen.moving_sequence(64, 48, 4, seed=1))
+    ec = EncoderConfig(8, 2, 2, 4, resolution=(64, 48), parallel_gops=n)
+    with pytest.raises(ValueError, match="parallel_gops"):
+        encode_video(InputParameters(str(y), 64, 48, ec, frames_to_process=4),
+                     results_csv_path=None)

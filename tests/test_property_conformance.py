@@ -2,7 +2,7 @@
 
 Draws seeded random configurations over the full feature space (block size,
 search range, I_Period, QP, nRefFrames, fastME, fracME, RC mode, resolution
-incl. non-block-multiples, parallel GOP sharding) and asserts that the TPU
+incl. non-block-multiples, parallel GOP sharding) and asserts that the device
 pipeline's bitstream and artifact tree are byte-identical to the golden
 oracle under ``exact_transform`` (which pins the one permitted float
 divergence), plus the decode==recon invariant.  A fixed seed keeps the sweep
@@ -19,8 +19,8 @@ from basic_video_codec_tpu.config import EncoderConfig, InputParameters
 from basic_video_codec_tpu.golden.decoder import decode_video as golden_decode
 from basic_video_codec_tpu.golden.encoder import encode_video as golden_encode
 from basic_video_codec_tpu.io.fileio import FileIOHelper
-from basic_video_codec_tpu.models.pipeline import decode_video as tpu_decode
-from basic_video_codec_tpu.models.pipeline import encode_video as tpu_encode
+from basic_video_codec_tpu.models.pipeline import decode_video as dev_decode
+from basic_video_codec_tpu.models.pipeline import encode_video as dev_encode
 from basic_video_codec_tpu.tools import ygen
 
 N_CASES = int(os.environ.get("BVC_PROPERTY_CASES", "8"))
@@ -75,7 +75,7 @@ def test_table_qp_beyond_block_range_rejected(tmp_path):
     ec.rc_lookup_table = {k: dict(v) for k, v in RC_TABLE.items()}  # up to QP 11
     p = InputParameters(str(tmp_path / "t.y"), 48, 32, ec, frames_to_process=2)
     with pytest.raises(ValueError, match="beyond the valid"):
-        tpu_encode(p, results_csv_path=None)
+        dev_encode(p, results_csv_path=None)
     with pytest.raises(ValueError, match="beyond the valid"):
         golden_encode(p, results_csv_path=None)
 
@@ -99,7 +99,7 @@ def test_random_config_byte_parity(tmp_path, case, monkeypatch):
     y = ygen.moving_sequence(w, h, n, seed=int(rng.integers(0, 1 << 30)))
     ios = {}
     for sub, enc, dec in (("g", golden_encode, golden_decode),
-                          ("t", tpu_encode, tpu_decode)):
+                          ("t", dev_encode, dev_decode)):
         d = tmp_path / sub
         d.mkdir()
         ygen.write_y_file(str(d / "t.y"), y)
