@@ -16,7 +16,7 @@ exposes the same flows as subcommands::
 import argparse
 import sys
 
-from .config import EncoderConfig, InputParameters
+from .config import BACKENDS, EncoderConfig, InputParameters
 
 
 def _add_codec_args(p):
@@ -33,7 +33,7 @@ def _add_codec_args(p):
     p.add_argument("--fracme", action="store_true")
     p.add_argument("--rc", type=int, default=0, choices=(0, 1, 2, 3))
     p.add_argument("--target-br", type=int, default=0)
-    p.add_argument("--backend", default="auto", choices=("auto", "device", "golden"))
+    p.add_argument("--backend", default="auto", choices=BACKENDS)
     p.add_argument("--parallel-gops", type=int, default=0,
                    help="encode this many GOPs concurrently, one per device "
                         "(multi-chip; output is byte-identical to serial)")

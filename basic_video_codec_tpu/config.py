@@ -28,6 +28,8 @@ from .utils.logger import get_logger
 
 logger = get_logger()
 
+BACKENDS = ("auto", "device", "golden")
+
 
 class EncoderConfig:
     """All encoder knobs (reference encoder/params.py:6-36)."""
@@ -83,6 +85,8 @@ class EncoderConfig:
         * fastME forces ``search_range = -1`` (sentinel used in artifact
           names and the results log, reference params.py:34-35).
         """
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend {self.backend!r} is not one of {BACKENDS}")
         if self.quantization_factor > (math.log2(self.block_size) + 7):
             raise ValueError(
                 f" qp [{self.quantization_factor}] > {math.log2(self.block_size) + 7}"

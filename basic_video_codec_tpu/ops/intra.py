@@ -119,7 +119,21 @@ def intra_encode_frame(
         Q = qmats[qp]
         coeffs = T.forward_coeffs(cblk - pred, bs, exact)
         q = T.quantize(coeffs, Q)
-        recon_blk, _ = T.reconstruct_mode(q, Q, pred, bs, exact)
+        # reconstruct in the decoder's lane layout (intra_decode_frame: one
+        # [nbr, bs, bs] IDCT per diagonal, lane = block row).  A float IDCT
+        # of one [bs, bs] block can round a pixel apart from the same block
+        # inside the batched dot, so decode != recon; the same dot shape and
+        # lane keep the two bit-identical.
+        lane = y // bs
+
+        def in_lane(a):
+            return jax.lax.dynamic_update_slice(
+                jnp.zeros((nbr, bs, bs), a.dtype), a[None], (lane, 0, 0))
+
+        recon_lanes, _ = T.reconstruct_mode(
+            in_lane(q), jnp.broadcast_to(Q, (nbr, bs, bs)), in_lane(pred),
+            bs, exact)
+        recon_blk = recon_lanes[lane]
         recon = jax.lax.dynamic_update_slice(recon, recon_blk.astype(jnp.int32), (y, x))
         # artifact plane: int16 residual stored into a uint8 frame wraps
         # mod 256 (reference IFrame.py:30,57)

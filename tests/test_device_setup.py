@@ -37,6 +37,16 @@ def test_compile_cache_placement(tmp_path, env_set):
     assert os.path.dirname(compcache.DEFAULT_DIR) == ROOT
 
 
+@pytest.mark.parametrize("backend", ["cuda", "cpu", ""])
+def test_unknown_backend_rejected(backend):
+    """Only "auto", "device" and "golden" name a pipeline; any other value
+    is an error instead of silently running the device pipeline."""
+    from basic_video_codec_tpu import EncoderConfig
+
+    with pytest.raises(ValueError, match="backend"):
+        EncoderConfig(8, 2, 4, 3, backend=backend)
+
+
 def test_chip_smoke_refuses_cpu():
     """The device phase exits non-zero on the CPU instead of falling back."""
     out = _run(["chip_smoke.py", "--child", "device"], {})

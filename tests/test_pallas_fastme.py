@@ -112,3 +112,24 @@ def test_fastme_kernel_choice_by_backend(monkeypatch, backend, kernel):
 
     monkeypatch.setattr(jax, "default_backend", lambda: backend)
     assert fastme_pallas.use_pallas_fastme() is kernel
+
+
+@pytest.mark.parametrize("frac", [False, True], ids=["int", "frac"])
+def test_pallas_fastme_vmapped_lanes(frac):
+    """Under vmap (the batch lane's fastME groups) each lane becomes one
+    program of the grid and must equal the golden walk of its own frames."""
+    import jax
+
+    h, w, bs, n_ref, lanes = 48, 64, 8, 2, 3
+    seq = ygen.moving_sequence(w, h, n_ref + lanes, seed=3)
+    refs = np.stack([seq[k:k + n_ref] for k in range(lanes)])
+    curr = np.stack([seq[k + n_ref] for k in range(lanes)])
+    hps = (np.stack([[build_pre_interpolated_buffer(r) for r in rr]
+                     for rr in refs]) if frac
+           else np.zeros((lanes, n_ref, 2 * h, 2 * w), np.uint8))
+    got = jax.vmap(lambda c, r, p: fast_search_frame_pallas(
+        c, r, p, bs, frac, interpret=True))(
+            jnp.asarray(curr), jnp.asarray(refs), jnp.asarray(hps))
+    for k in range(lanes):
+        _assert_same([g[k] for g in got],
+                     golden_fast_frame(curr[k], refs[k], hps[k], bs, frac))
